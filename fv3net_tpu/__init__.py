@@ -1,11 +1,11 @@
-"""fv3net_tpu: a TPU-native atmospheric modeling framework.
+"""fv3net_tpu: a JAX atmospheric modeling framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of ai2cm/fv3net:
 an FV3-style cubed-sphere finite-volume dynamical core, the ML-coupling
 runtime around it (time loop, steppers, diagnostics), an fv3fit-style ML
-framework, and the vcm-style science utility library -- all built for TPU
-device meshes (sharding over cube faces with ICI halo collectives) rather
-than MPI domain decomposition.
+framework, and the vcm-style science utility library -- all built for
+accelerator device meshes (sharding over cube faces with halo
+collectives) rather than MPI domain decomposition.
 
 Layout:
     grid/      cubed-sphere geometry, face topology, halo exchange

@@ -1,6 +1,6 @@
 """Semi-implicit nonhydrostatic vertical solver (Riemann solver).
 
-The TPU-native equivalent of FV3's `Riem_Solver3`/`SIM1_solver`
+The JAX equivalent of FV3's `Riem_Solver3`/`SIM1_solver`
 (reference submodule `external/fv3gfs-fortran`, not in tree; configured
 fully implicit by `a_imp: 1.0` in the reference C12 namelist,
 workflows/prognostic_c48_run/tests/test_regression.py:133-200, which
@@ -21,9 +21,10 @@ RESTART_Z_CENTER dims):
 Backward-Euler linearization couples neighboring layers through the
 interface stiffness aa_k = 2 gamma dt^2 (p_if)/ (dz_{k-1}+dz_k), giving
 one bidiagonal solve for the provisional interface perturbation and one
-tridiagonal (Thomas) solve for w -- both implemented as `lax.scan` over
-the 63 levels with all 6*n*n columns batched per step (TPU-friendly:
-every scan step is a [6, n, n] VPU op).
+tridiagonal (Thomas) solve for w.  The reference form below runs them as
+`lax.scan` over the levels with all 6*n*n columns batched per step; on
+the GPU a fused Triton kernel (ops/pallas_sim1.py) walks the levels of
+each column block in one program.
 
 Boundary conditions: p' = 0 at the model top (open); at the surface the
 material boundary condition w = ws (terrain-following surface vertical
@@ -58,23 +59,24 @@ def dz_from_pressure(dm, pt, p):
     return -(dm * RDGAS * pt / P00) * (p / P00) ** (-CV_AIR / CP_AIR)
 
 
+@jax.named_scope("vertical_solver")
 def sim1_solve(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
-    """Dispatching front-end: the fused Pallas kernel on TPU for
-    MXU-friendly widths (the same >=128-lane gate as fv_tp_2d --
-    below it the kernel boundary costs more than the fusion saves),
-    else the jnp reference implementation below."""
-    from ..ops.advection import _pallas_enabled
+    """Dispatching front end: the fused Triton kernel
+    (ops/pallas_sim1.py) where the step is compiled for a CUDA GPU,
+    the jnp reference `sim1_solver` on every other platform.  The
+    choice is made per lowering platform, so one traced step serves
+    both."""
+    from ..ops.pallas_sim1 import sim1_solver_pallas
 
-    if _pallas_enabled() and dm.shape[-1] >= 128:
-        from ..ops.pallas_sim1 import sim1_solver_pallas
-
-        return sim1_solver_pallas(
-            dt, dm, pt, dz, w, pem, pm, ws, p_fac=p_fac
-        )
-    return sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac)
+    return jax.lax.platform_dependent(
+        dm, pt, dz, w, pem, pm, ws,
+        cuda=lambda *a: sim1_solver_pallas(dt, *a, p_fac=p_fac),
+        default=lambda *a: sim1_solver(dt, *a, p_fac),
+    )
 
 
-def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
+def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05,
+                unroll: int | bool = 1):
     """Fully implicit vertical acoustic solve for one substep.
 
     All arrays have the level axis at position 1: dm/pt/dz/w/pm are
@@ -82,7 +84,8 @@ def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
     hydrostatic interface pressure, ws is [6, n, n].
 
     Returns (w2, dz2, ppe) with ppe the updated nonhydrostatic interface
-    pressure perturbation [6, nz+1, n, n] (zero at the top).
+    pressure perturbation [6, nz+1, n, n] (zero at the top).  `unroll`
+    is passed to the three level scans (True: fully unrolled).
     """
     nz = dm.shape[1]
     lvl = lambda a: jnp.moveaxis(a, 1, 0)  # noqa: E731
@@ -118,6 +121,7 @@ def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
         pp_step,
         (jnp.full_like(one, 1.0), jnp.zeros_like(one)),
         (bb, dd, g_rat_prev, first_flag),
+        unroll=unroll,
     )
     pp = jnp.concatenate([jnp.zeros_like(one)[None], pp_rest], axis=0)
 
@@ -143,7 +147,9 @@ def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
         return (bet, wp, jnp.zeros_like(first)), (wp, gam)
 
     init = (jnp.ones_like(one), jnp.zeros_like(one), jnp.ones_like(one))
-    _, (wp, gam) = jax.lax.scan(fwd, init, (dm_l, aa_up, aa_dn, rhs))
+    _, (wp, gam) = jax.lax.scan(
+        fwd, init, (dm_l, aa_up, aa_dn, rhs), unroll=unroll
+    )
 
     def back(w_next, x):
         wp_k, gam_next = x
@@ -152,7 +158,8 @@ def sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
 
     gam_next = jnp.concatenate([gam[1:], jnp.zeros_like(one)[None]], 0)
     _, w2_rev = jax.lax.scan(
-        back, jnp.zeros_like(one), (wp[::-1], gam_next[::-1])
+        back, jnp.zeros_like(one), (wp[::-1], gam_next[::-1]),
+        unroll=unroll,
     )
     w2 = w2_rev[::-1]
 

@@ -456,11 +456,9 @@ class SWMetrics:
             return vjp_fn(div * area_j)
 
         # jit the whole 30-step power iteration: tracing T
-        # interpretively per step dominated stepper-construction time
-        # (the round-2 bench regression).  Pinned to the host CPU
-        # backend: it runs once at build time for a scalar, and the
-        # accelerator compile of the vjp/fori graph would cost far
-        # more than the computation.
+        # interpretively per step dominated stepper-construction time.
+        # Pinned to the host CPU backend: it runs once at build time
+        # for a scalar.
         @jax.jit
         def power_iteration(uu, vv):
             def body(_, carry):
@@ -599,31 +597,6 @@ def scalar_filter(q, m, c):
     if c == 0.0:
         return q
     h, n = m.halo, m.n
-    # Face level on TPU: one fused Pallas pass computes BOTH Laplacian
-    # applications from a single (x-fill, y-fill) exchange pair -- the
-    # halo band of L(q) is computed locally, which the canonical fill
-    # conventions make exactly equal to re-exchanging it (asserted in
-    # tests/test_pallas_kernels.py::test_del4_filter_pallas_matches).
-    # Replaces 4 exchanges + ~12 HBM-resident stencil fusions per call
-    # (this filter runs 4x per substep).
-    from ..ops.advection import _pallas_enabled
-
-    if (
-        m.edge_w is None
-        and _pallas_enabled()
-        and n + 2 * h >= 128
-    ):
-        from ..ops.pallas_filter import del4_filter_pallas
-
-        qx = halo_exchange(q, h, fill="x")
-        qy = halo_exchange(q, h, fill="y")
-        squeeze = q.ndim == 3
-        if squeeze:
-            qx, qy = qx[:, None], qy[:, None]
-        out = del4_filter_pallas(
-            qx, qy, m.area_px, m.area_py, c, h
-        )
-        return out[:, 0] if squeeze else out
     # face weights = mean adjacent cell area, making (1/area) G^T(w G)
     # nondimensional with Laplacian-like eigenvalues <= ~8
     wfx = 0.5 * (
@@ -667,9 +640,9 @@ def scalar_filter(q, m, c):
         # its two adjacent cells, and inter-face boundary faces —
         # computed by BOTH adjacent faces, once each — carry doubled
         # weight.  Exact same operator (same sums, no autodiff
-        # scatter): the vjp-of-gather transpose costs 10.4 ms/call at
-        # C192 on TPU vs ~3 ms for this forward form; equality is
-        # asserted by tests/test_sw.py::test_scalar_filter_local_form.
+        # scatter, which the vjp-of-gather transpose would be);
+        # equality is asserted by
+        # tests/test_sw.py::test_scalar_filter_local_form.
         sx, sy = _cell_grad_op(qq, m)
         tx = sx * bc(wfx)
         ty = sy * bc(wfy)
@@ -733,7 +706,7 @@ def vort_damp(u, v, m, cv):
     # contributions under within-face tiling.  The forward-only local
     # pair below is the exact same operator (asserted by
     # tests/test_sw.py::test_vort_damp_local_form) without the
-    # autodiff-scatter cost (29 -> ~3 ms/call at C192 on TPU).
+    # autodiff scatter.
     def Vop_local(uu, vv):
         return (
             uu[..., :-1, :] - uu[..., 1:, :]

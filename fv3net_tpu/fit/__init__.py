@@ -1,3 +1,5 @@
+from importlib import import_module
+
 from ._shared import (
     ArrayPacker,
     Predictor,
@@ -19,17 +21,6 @@ from .models import (
     TaperedModel,
 )
 from .dense import train_dense_model, DenseHyperparameters
-from .convolutional import (
-    train_convolutional_model,
-    ConvolutionalHyperparameters,
-    ConvolutionalModel,
-    append_halos,
-)
-from .precipitative import (
-    train_precipitative_model,
-    PrecipitativeHyperparameters,
-    PrecipitativeModel,
-)
 from .reservoir import (
     train_reservoir_model,
     ReservoirHyperparameters,
@@ -37,30 +28,43 @@ from .reservoir import (
     Reservoir,
     RankDivider,
 )
-from .generative import (
-    train_autoencoder,
-    AutoencoderHyperparameters,
-    AutoencoderModel,
-    train_cyclegan,
-    CycleGANHyperparameters,
-    CycleGANModel,
-)
 from .sklearn_models import (
     train_random_forest,
     RandomForestHyperparameters,
     MinMaxNoveltyDetector,
     train_min_max_novelty_detector,
 )
-from .graph import (
-    train_graph_model,
-    GraphHyperparameters,
-    GraphModel,
-)
-from .recurrent import (
-    train_fmr_model,
-    FMRHyperparameters,
-    FMRModel,
-)
+
+# The flax-based families load on first use, so that the dense model --
+# the one the coupled step traces in-graph -- needs no flax.
+_LAZY = {
+    "train_convolutional_model": "convolutional",
+    "ConvolutionalHyperparameters": "convolutional",
+    "ConvolutionalModel": "convolutional",
+    "append_halos": "convolutional",
+    "train_precipitative_model": "precipitative",
+    "PrecipitativeHyperparameters": "precipitative",
+    "PrecipitativeModel": "precipitative",
+    "train_autoencoder": "generative",
+    "AutoencoderHyperparameters": "generative",
+    "AutoencoderModel": "generative",
+    "train_cyclegan": "generative",
+    "CycleGANHyperparameters": "generative",
+    "CycleGANModel": "generative",
+    "train_graph_model": "graph",
+    "GraphHyperparameters": "graph",
+    "GraphModel": "graph",
+    "train_fmr_model": "recurrent",
+    "FMRHyperparameters": "recurrent",
+    "FMRModel": "recurrent",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(import_module(f".{_LAZY[name]}", __name__), name)
+
 
 __all__ = [
     "ArrayPacker",
@@ -81,26 +85,14 @@ __all__ = [
     "TaperedModel",
     "train_dense_model",
     "DenseHyperparameters",
-    "train_convolutional_model",
-    "ConvolutionalHyperparameters",
-    "ConvolutionalModel",
-    "append_halos",
-    "train_precipitative_model",
-    "PrecipitativeHyperparameters",
-    "PrecipitativeModel",
     "train_reservoir_model",
     "ReservoirHyperparameters",
     "ReservoirComputingModel",
     "Reservoir",
     "RankDivider",
-    "train_autoencoder",
-    "AutoencoderHyperparameters",
-    "AutoencoderModel",
-    "train_cyclegan",
-    "CycleGANHyperparameters",
-    "CycleGANModel",
     "train_random_forest",
     "RandomForestHyperparameters",
     "MinMaxNoveltyDetector",
     "train_min_max_novelty_detector",
+    *_LAZY,
 ]

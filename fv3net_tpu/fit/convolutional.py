@@ -7,8 +7,7 @@ halos.py:10-60) and runs a keras CNN with VALID padding so the output
 is exactly the interior.  Here the halo append IS the framework's
 halo_exchange gather (grid/halo.py:65) -- the same edge/corner
 rotation semantics, executed as one XLA gather -- and the CNN is a
-flax module, so train and predict both run jitted on TPU with the MXU
-doing the convolutions.
+flax module, so train and predict both run jitted on the accelerator.
 
 Fields are packed [6, y, x, channels] with z as channels (the
 reference stacks [tile, x, y, z] the same way, convolutional.py:92).

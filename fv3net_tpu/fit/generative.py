@@ -1,7 +1,7 @@
 """Generative model families: autoencoder + CycleGAN
 (fv3fit/pytorch/cyclegan/train_autoencoder.py:66,
 train_cyclegan.py:226 -- the reference trains these in torch; here
-they are flax/optax so training itself runs on the TPU MXU).
+they are flax/optax so training itself runs jitted on the accelerator).
 
 Both operate on cubed-sphere tiles packed channel-last
 [batch*6, y, x, c] like the convolutional family.  The CycleGAN is the

@@ -2,14 +2,13 @@
 function, reference fv3fit/pytorch/graph/train.py:65 — UNet / MPG
 message-passing architectures over cubed-sphere nodes).
 
-TPU-native design: the reference builds an explicit edge list over
-grid nodes and runs torch message passing (gather/scatter — poor MXU
-shapes).  On the cube the graph is a fixed-degree 4-neighbor grid
+Design: the reference builds an explicit edge list over grid nodes and
+runs torch message passing (gather/scatter).  On the cube the graph is a fixed-degree 4-neighbor grid
 graph whose only irregularity is the 12 face seams, so message
 passing factorizes into (a) a cube-topology halo exchange (one XLA
 gather, `grid/halo.py`) and (b) axis shifts of the padded block —
 every aggregation is a dense [6, y, x, c] tensor op and the node/edge
-MLPs are batched matmuls on the MXU.  The graph-UNet variant pools by
+MLPs are batched matmuls.  The graph-UNet variant pools by
 2x2 block means (exact on the quad-tree the cubed sphere defines) and
 unpools by nearest-neighbor upsampling, mirroring the reference's
 coarsen/refine levels.

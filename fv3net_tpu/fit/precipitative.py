@@ -6,7 +6,7 @@ precipitation with the reference's physical coupling: the surface
 precipitation output is the column integral of the drying
   P = -<dQ2> = -sum_k dQ2_k * delp_k / g   (clipped to P >= 0)
 plus a learned residual column-process term, so the model's water
-budget closes by construction.  TPU-native: one flax MLP trunk with
+budget closes by construction.  One flax MLP trunk with
 two linear heads, trained end-to-end with the precip constraint inside
 the loss graph.
 """

@@ -3,7 +3,7 @@ function, reference fv3fit/pytorch/recurrent/train_fmr.py:446 — an RNN
 that replaces the entire model step: given forcings and the current
 state it predicts the next state, trained on time sequences).
 
-TPU-native design: the reference steps a torch GRU per column in
+Design: the reference steps a torch GRU per column in
 Python; here the recurrence is a `lax.scan` over the time axis with
 every cube column batched into one [6*y*x, features] matmul per gate —
 the whole multi-step rollout (teacher-forced training AND free-running

@@ -1,10 +1,10 @@
 """Reservoir computing (fv3fit/reservoir: reservoir.py:31-123,
 domain.py:19-129, readout.py, model.py:5).
 
-TPU-native redesign: the reference builds scipy.sparse W_in/W_res and
-steps them per subdomain in numpy; here the reservoir matrices are
-dense (masked random) jnp arrays -- at reservoir sizes O(10^3) the MXU
-runs the dense matvec faster than any sparse format -- and the update
+Redesign: the reference builds scipy.sparse W_in/W_res and steps them
+per subdomain in numpy; here the reservoir matrices are dense (masked
+random) jnp arrays -- at reservoir sizes O(10^3) a dense matvec is the
+accelerator's natural shape -- and the update
 is vmapped over all subdomains at once, so one training step is a
 single [n_subdomains, state, state] batched matmul.  The readout is a
 closed-form ridge regression solved on device.
@@ -127,8 +127,8 @@ class Reservoir:
             jax.random.uniform(k2, w.shape) > hp.adjacency_sparsity
         )
         w = w * mask
-        # spectral radius on host (lax eig has no TPU lowering; this is
-        # a one-time setup cost on a [state, state] matrix)
+        # spectral radius on host (a non-symmetric eig; this is a
+        # one-time setup cost on a [state, state] matrix)
         eigmax = float(
             np.abs(np.linalg.eigvals(np.asarray(w, np.float64))).max()
         )

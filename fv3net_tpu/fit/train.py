@@ -10,8 +10,6 @@ import json
 import logging
 import sys
 
-import yaml
-
 from ._shared import (
     TrainingConfig,
     dump,
@@ -46,6 +44,8 @@ def main(argv=None):
     parser.add_argument("output_path")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
+
+    import yaml
 
     with open(args.training_config) as f:
         cfg_dict = yaml.safe_load(f)

@@ -2,8 +2,8 @@
 
 The provably-dissipative dampers (dycore/sw.py div_damp /
 corner_div_damp) are built as M^T(W M) with jax.vjp; autodiff's
-transpose of a table GATHER is a SCATTER-add, which costs ~20 ms per
-damper call at C192 x 63 on TPU (measured r4).  The transpose of a
+transpose of a table GATHER is a SCATTER-add, a serializing
+full-field update.  The transpose of a
 halo gather is itself expressible as gathers: every halo slot reads
 exactly one pool entry, so grouping halo slots by source yields K
 (small) inverse gather tables over the h-deep source band — forward

@@ -19,7 +19,7 @@ known contact list in tests.
 
 Index conventions
 -----------------
-Fields are laid out ``[face, ..., j, i]`` where ``i`` (last axis, TPU lanes)
+Fields are laid out ``[face, ..., j, i]`` where ``i`` (last, contiguous axis)
 increases along the face-local ``ex`` direction and ``j`` along ``ey``.
 Edges are W (i lower), E (i upper), S (j lower), N (j upper).
 """

@@ -2,7 +2,7 @@
 
 The 2D flux-form advection scheme of the FV3 dycore: directionally-split
 1D PPM operators combined with Lin & Rood (1996) inner/outer averaging so
-the splitting error cancels to second order.  This is the TPU-native
+the splitting error cancels to second order.  This is the JAX
 equivalent of the reference dycore's ``fv_tp_2d``/``xppm``/``yppm``
 (FV3GFS tp_core.F90; not in the reference tree -- the submodule is empty
 -- so the scheme is implemented from its published formulation and
@@ -24,48 +24,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-# Pallas dispatch for the fused transport kernel (ops/pallas_tp.py):
-# None = auto (use Pallas on TPU backends), True/False = forced.
-# The jnp implementation below remains the reference semantics; the
-# kernel is equivalence-gated against it (tests/test_pallas_kernels.py
-# in interpret mode, plus bitwise real-chip checks in tools/).
-_USE_PALLAS = None
-
-
-def set_pallas_transport(flag):
-    """Force (True/False) or restore auto (None) Pallas dispatch."""
-    global _USE_PALLAS
-    _USE_PALLAS = flag
-
-
-def _pallas_enabled() -> bool:
-    if _USE_PALLAS is not None:
-        return _USE_PALLAS
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:
-        return False
-
-
-# Separate switch for the fused 5-field substep transport
-# (pallas_tp.fv_tp_2d_multi5).  OFF by default: on the real chip it is
-# bit-identical to the five per-field kernels and neither faster nor
-# slower (C192 820.3 vs 820.2 ms/step) but costs +45 s of Mosaic
-# compile -- a bad trade against the bench's remote-compile budget
-# (same verdict as the flag-gated remap kernel).
-_USE_FUSED5 = False
-
-
-def set_fused_transport(flag):
-    """Enable (True) / disable (False) the fused 5-field transport
-    kernel dispatch in the dycore substep."""
-    global _USE_FUSED5
-    _USE_FUSED5 = bool(flag)
-
-
-def _fused5_enabled() -> bool:
-    return _USE_FUSED5
 
 
 def _ppm_edges(q, axis: int, hord: int):
@@ -156,6 +114,7 @@ def ppm_flux(q, cr, axis: int, hord: int):
     return jnp.where(c > 0.0, qup, qdn)
 
 
+@jax.named_scope("transport")
 def fv_tp_2d(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py, hord: int):
     """2D Lin-Rood flux-form transport on the padded cube.
 
@@ -184,18 +143,6 @@ def fv_tp_2d(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py, hord: int):
     transverse direction (divided by the transversely-updated air mass)
     feeds the outer flux computation, cancelling the splitting error.
     """
-    # Pallas pays off only on wide grids: at C48 (N=54, one 128-lane
-    # tile) XLA fuses the jnp stencils into neighboring ops and the
-    # kernel boundary + grid DMA makes the step ~60% SLOWER (measured
-    # 61 -> 100 ms/step r4); at C192 (N=198) the fused kernel is 5.7x
-    # faster than the jnp chain (12.7 -> 2.2 ms/call).
-    if _pallas_enabled() and qp_x.shape[-1] >= 128:
-        from .pallas_tp import fv_tp_2d_pallas
-
-        return fv_tp_2d_pallas(
-            qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py, hord
-        )
-
     def shx(a, k):
         return jnp.roll(a, -k, axis=-1)
 

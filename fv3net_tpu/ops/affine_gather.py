@@ -2,11 +2,9 @@
 
 The halo exchanges in this framework are defined by static gather
 tables (grid/topology.py): per output slot, a (source face, j, i[,
-sign]).  Executing them as flat ``jnp.take`` gathers is correct but far
-off roofline on TPU -- XLA lowers arbitrary-index gathers on the lane
-dimension to element-at-a-time loads (measured: one C192 halo exchange
-3.9 ms vs ~0.14 ms of HBM traffic; the gathers dominate the whole
-dycore substep).  But the FV3 cube topology only ever maps CONTIGUOUS
+sign]).  Executing them as flat ``jnp.take`` gathers is correct, but
+an arbitrary-index gather reads element at a time where a copy of a
+contiguous strip streams.  The FV3 cube topology only ever maps CONTIGUOUS
 strips with one of the 8 square symmetries, so every table block is
 piecewise AFFINE: ``j = j0 + a*dja + b*djb, i = i0 + a*dia + b*dib``
 with strides in {-1, 0, 1} and a constant sign.

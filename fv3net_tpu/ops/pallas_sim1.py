@@ -1,21 +1,25 @@
-"""Fused Pallas TPU kernel for the semi-implicit vertical solver.
+"""Fused Pallas (Triton route) kernel for the semi-implicit vertical solver.
 
 The jnp `dycore.riemann.sim1_solver` (FV3's SIM1_solver role,
 `a_imp: 1.0` in the reference namelist,
 workflows/prognostic_c48_run/tests/test_regression.py:133-200) runs
-four `lax.scan`s over the 63 levels; under XLA each scan iteration is a
-separate tiny [6, n, n] HBM round trip, so the solver is latency-bound
-(~3-4 ms/call at C192 despite touching only ~0.6 ms of HBM traffic).
+three `lax.scan`s and a cumsum over the levels; compiled for the GPU
+each scan iteration is its own small kernel over all 6*n*n columns.
 
-This kernel keeps whole (BY, n) column slabs in VMEM: the level-
-parallel algebra (gas-law pressure, row coefficients, stiffnesses,
-final thickness update) runs as full-block vector ops and only the
-three true recurrences (the bidiagonal pp sweep, the Thomas forward/
-backward sweeps and the ppe prefix sum) iterate over levels -- each
-iteration a (BY, n) VPU op on VMEM-resident rows.
+This kernel gives one program to each run of `block` columns along the
+contiguous (y*x) axis and walks the levels inside the program:
 
-Semantics are identical to `sim1_solver` (equivalence-gated in
-tests/test_pallas_kernels.py, interpret mode + the jnp oracle).
+1. forward: gas-law pressure, the bidiagonal pp sweep and the Thomas
+   forward elimination in one pass (pp_{k+1} is all that level k's
+   stiffness and right-hand side need), writing the provisional w and
+   the elimination coefficients gam -- an extra output that stays in
+   L2 until the back sweep reads it;
+2. backward: the Thomas back substitution into w2;
+3. forward: the ppe prefix sum and the new layer thickness.
+
+Masked loads and stores cover the ragged last block, so any width runs.
+Semantics are those of `sim1_solver` (tests/test_pallas_kernels.py
+compares the two in interpret mode).
 """
 
 from __future__ import annotations
@@ -25,177 +29,148 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..constants import (
-    CP_AIR,
-    CV_AIR,
-    RDGAS,
-    REFERENCE_SURFACE_PRESSURE as P00,
-)
+from ..dycore.riemann import GAMMA, dz_from_pressure, full_pressure
 
-GAMMA = CP_AIR / CV_AIR
+# columns per program: a power of two for Triton; 64 columns are two
+# warps with one column per thread, enough programs (216 at C48) to
+# spread over the card's 132 SMs
+BLOCK = 64
 
 
-def _sim1_kernel(dm_ref, pt_ref, dz_ref, w_ref, pem_ref, pm_ref,
-                 ws_ref, w2_ref, dz2_ref, ppe_ref,
-                 pp_s, gr_s, bb_s, dd_s, up_s, dn_s, rhs_s, gam_s,
-                 *, dt: float, nz: int, p_fac: float):
+def _sim1_kernel(dm_ref, pt_ref, dz_ref, w_ref, pem_ref, pm_ref, ws_ref,
+                 w2_ref, dz2_ref, ppe_ref, gam_ref,
+                 *, dt: float, nz: int, p_fac: float, block: int,
+                 sync: bool):
+    f = pl.program_id(0)
+    cols = pl.program_id(1) * block + jnp.arange(block)
+    mask = cols < dm_ref.shape[-1]
+
+    def ld(ref, k):
+        return plgpu.load(ref.at[f, k, cols], mask=mask)
+
+    def st(ref, k, val):
+        plgpu.store(ref.at[f, k, cols], val, mask=mask)
+
+    def pe_at(k, dm):
+        return full_pressure(dm, ld(pt_ref, k), ld(dz_ref, k)) - ld(
+            pm_ref, k
+        )
+
     t1g = 2.0 * GAMMA * dt * dt
-    rdt = 1.0 / dt
-    dm = dm_ref[0]
-    pt = pt_ref[0]
-    dz = dz_ref[0]
-    w = w_ref[0]
-    pem = pem_ref[0]
-    pm = pm_ref[0]
-    ws = ws_ref[0]
+    ws = plgpu.load(ws_ref.at[f, cols], mask=mask)
 
-    # --- level-parallel precompute (full-slab vector ops) -------------
-    pe = (
-        P00 * (-dm * RDGAS * pt / (dz * P00)) ** GAMMA - pm
-    )  # layer pressure perturbation from the gas law
-    g_rat = dm[:-1] / dm[1:]
-    gr_s[:-1] = g_rat
-    gr_s[nz - 1] = jnp.zeros_like(dm[0])
-    bb_s[:-1] = 2.0 * (1.0 + g_rat)
-    bb_s[nz - 1] = jnp.full_like(dm[0], 2.0)
-    dd_s[:-1] = 3.0 * (pe[:-1] + g_rat * pe[1:])
-    dd_s[nz - 1] = 3.0 * pe[nz - 1]
+    # --- pass 1: pp sweep + Thomas forward elimination ------------------
+    # carry: level-k inputs (dm, pe, dz), pp_k, the pp sweep's (bet,
+    # g_rat_{k-1}), the stiffness above level k and the Thomas (bet, wp).
+    # The first level's "previous" values (g_rat 0, bet 1, a_up 0) make
+    # its coefficients come out exactly as the reference's first row.
+    def level(k, carry, last: bool):
+        dm, pe, dz, pp, bet_pp, gr_prev, a_up, bet, wp = carry
+        if last:
+            bb = 2.0
+            dd = 3.0 * pe
+        else:
+            dm1 = ld(dm_ref, k + 1)
+            pe1 = pe_at(k + 1, dm1)
+            dz1 = ld(dz_ref, k + 1)
+            g_rat = dm / dm1
+            bb = 2.0 * (1.0 + g_rat)
+            dd = 3.0 * (pe + g_rat * pe1)
+        bet_pp = bb - gr_prev / bet_pp
+        pp1 = (dd - pp) / bet_pp
+        rhs = dm * ld(w_ref, k) + dt * (pp1 - pp)
+        if last:
+            a_dn = t1g / dz * (ld(pem_ref, nz) + pp1)
+            rhs = rhs - a_dn * ws
+        else:
+            a_dn = t1g / (dz + dz1) * (ld(pem_ref, k + 1) + pp1)
+        gam = a_up / bet
+        bet = dm - (a_up + a_dn + a_up * gam)
+        wp = (rhs - a_up * wp) / bet
+        st(w2_ref, k, wp)
+        st(gam_ref, k, gam)
+        if last:
+            return wp
+        return (dm1, pe1, dz1, pp1, bet_pp, g_rat, a_dn, bet, wp)
 
-    # --- bidiagonal forward sweep for pp (interface perturbation) -----
-    zero = jnp.zeros_like(dm[0])
-    pp_s[0] = zero
-    bet0 = bb_s[0]
-    pp1 = dd_s[0] / bet0
-    pp_s[1] = pp1
+    dm0 = ld(dm_ref, 0)
+    zero = jnp.zeros_like(dm0)
+    one = jnp.ones_like(dm0)
+    carry = (dm0, pe_at(0, dm0), ld(dz_ref, 0), zero, one, zero, zero,
+             one, zero)
+    carry = jax.lax.fori_loop(
+        0, nz - 1, functools.partial(level, last=False), carry
+    )
+    w_bottom = level(nz - 1, carry, last=True)
+    # each pass re-reads what the previous one stored; the barrier makes
+    # those stores visible across the block's threads (the interpreter
+    # runs a block as one array program and has no barrier)
+    if sync:
+        plgpu.debug_barrier()
 
-    def pp_body(k, carry):
-        bet, pp_prev = carry
-        gam = gr_s[k - 1] / bet
-        bet = bb_s[k] - gam
-        pp_k1 = (dd_s[k] - pp_prev) / bet
-        pp_s[k + 1] = pp_k1
-        return (bet, pp_k1)
-
-    jax.lax.fori_loop(1, nz, pp_body, (bet0, pp1), unroll=False)
-
-    # --- Thomas solve for w -------------------------------------------
-    pp = pp_s[:]
-    aa = t1g / (dz[:-1] + dz[1:]) * (pem[1:nz] + pp[1:nz])
-    p1 = t1g / dz[nz - 1] * (pem[nz] + pp[nz])
-    up_s[0] = zero
-    up_s[1:] = aa
-    dn_s[:-1] = aa
-    dn_s[nz - 1] = p1
-    rhs = dm * w + dt * (pp[1:] - pp[:-1])
-    rhs_s[:-1] = rhs[:-1]
-    rhs_s[nz - 1] = rhs[nz - 1] - p1 * ws
-
-    bet = dm[0] - dn_s[0]
-    wp0 = rhs_s[0] / bet
-    gam_s[0] = zero
-    w2_ref[0, 0] = wp0
-
-    def fwd_body(k, carry):
-        bet_prev, wp_prev = carry
-        a_up = up_s[k]
-        gam = a_up / bet_prev
-        bet = dm_ref[0, k] - (a_up + dn_s[k] + a_up * gam)
-        wp = (rhs_s[k] - a_up * wp_prev) / bet
-        gam_s[k] = gam
-        w2_ref[0, k] = wp
-        return (bet, wp)
-
-    jax.lax.fori_loop(1, nz, fwd_body, (bet, wp0), unroll=False)
-
-    def back_body(i, w_next):
-        k = nz - 1 - i
-        w_k = w2_ref[0, k] - gam_s[k + 1] * w_next
-        w2_ref[0, k] = w_k
+    # --- pass 2: Thomas back substitution --------------------------------
+    def back(i, w_next):
+        k = nz - 2 - i
+        w_k = ld(w2_ref, k) - ld(gam_ref, k + 1) * w_next
+        st(w2_ref, k, w_k)
         return w_k
 
-    jax.lax.fori_loop(1, nz, back_body, w2_ref[0, nz - 1],
-                      unroll=False)
+    jax.lax.fori_loop(0, nz - 1, back, w_bottom)
+    if sync:
+        plgpu.debug_barrier()
 
-    # --- updated interface perturbation (prefix sum) -------------------
-    ppe_ref[0, 0] = zero
+    # --- pass 3: interface perturbation prefix sum + new thickness -------
+    st(ppe_ref, 0, zero)
 
-    def ppe_body(k, acc):
-        acc = acc + dm_ref[0, k] * (w2_ref[0, k] - w_ref[0, k]) * rdt
-        ppe_ref[0, k + 1] = acc
-        return acc
+    def thickness(k, ppe):
+        dm = ld(dm_ref, k)
+        pm = ld(pm_ref, k)
+        ppe1 = ppe + dm * (ld(w2_ref, k) - ld(w_ref, k)) / dt
+        st(ppe_ref, k + 1, ppe1)
+        p_lay = jnp.maximum(pm + (ppe + 2.0 * ppe1) / 3.0, p_fac * pm)
+        st(dz2_ref, k, dz_from_pressure(dm, ld(pt_ref, k), p_lay))
+        return ppe1
 
-    jax.lax.fori_loop(0, nz, ppe_body, zero, unroll=False)
-
-    # --- new layer thickness from the gas law (level-parallel) ---------
-    ppe = ppe_ref[0]
-    p_lay = pm + (ppe[:-1] + 2.0 * ppe[1:]) / 3.0
-    p_lay = jnp.maximum(p_lay, p_fac * pm)
-    dz2_ref[0] = -(dm * RDGAS * pt / P00) * (
-        p_lay / P00
-    ) ** (-CV_AIR / CP_AIR)
+    jax.lax.fori_loop(0, nz, thickness, zero)
 
 
-def _pick_by(n: int) -> int:
-    return 8 if n % 8 == 0 else (4 if n % 4 == 0 else 1)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("dt", "p_fac", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("dt", "p_fac", "interpret"))
 def sim1_solver_pallas(dt, dm, pt, dz, w, pem, pm, ws,
                        p_fac: float = 0.05, interpret: bool = False):
     """Drop-in fused replacement for dycore.riemann.sim1_solver.
 
-    Arrays [F, nz, n, n] (pem [F, nz+1, n, n], ws [F, n, n]), level
-    axis 1.  Returns (w2, dz2, ppe).
+    Arrays [F, nz, ny, nx] (pem [F, nz+1, ny, nx], ws [F, ny, nx]),
+    level axis 1.  Returns (w2, dz2, ppe).
     """
     F, nz, ny, nx = dm.shape
-    BY = _pick_by(ny)
-    grid = (F, ny // BY)
+    ncol = ny * nx
 
-    lay = pl.BlockSpec(
-        (1, nz, BY, nx), lambda f, y: (f, 0, y, 0),
-        memory_space=pltpu.VMEM,
-    )
-    iface = pl.BlockSpec(
-        (1, nz + 1, BY, nx), lambda f, y: (f, 0, y, 0),
-        memory_space=pltpu.VMEM,
-    )
-    sfc = pl.BlockSpec(
-        (1, BY, nx), lambda f, y: (f, y, 0),
-        memory_space=pltpu.VMEM,
-    )
-    scr = lambda k: pltpu.VMEM((k, BY, nx), dm.dtype)  # noqa: E731
-    # 10 io blocks (double-buffered) + 8 column scratch arrays exceed
-    # the 16 MB default scoped-VMEM budget from N=192 up; v5e carries
-    # 128 MB of VMEM per core, so raise the Mosaic cap for all widths
-    # the kernel dispatches at (>=128 lanes)
-    params = {
-        "compiler_params": pltpu.CompilerParams(
-            vmem_limit_bytes=(
-                100 * 1024 * 1024 if nx > 256 else 48 * 1024 * 1024
-            )
-        )
-    }
-    w2, dz2, ppe = pl.pallas_call(
+    def cols(a):
+        return a.reshape(a.shape[:-2] + (ncol,))
+
+    # under shard_map the outputs vary over the same mesh axes as dm
+    vma = getattr(jax.typeof(dm), "vma", None)
+
+    def out(*shape):
+        return jax.ShapeDtypeStruct(shape, dm.dtype, vma=vma)
+
+    lay = out(F, nz, ncol)
+    w2, dz2, ppe, _ = pl.pallas_call(
         functools.partial(
-            _sim1_kernel, dt=float(dt), nz=nz, p_fac=p_fac
+            _sim1_kernel, dt=float(dt), nz=nz, p_fac=p_fac, block=BLOCK,
+            sync=not interpret,
         ),
-        grid=grid,
-        in_specs=[lay, lay, lay, lay, iface, lay, sfc],
-        out_specs=(lay, lay, iface),
-        out_shape=(
-            jax.ShapeDtypeStruct(dm.shape, dm.dtype),
-            jax.ShapeDtypeStruct(dm.shape, dm.dtype),
-            jax.ShapeDtypeStruct(pem.shape, dm.dtype),
-        ),
-        scratch_shapes=[
-            scr(nz + 1), scr(nz), scr(nz), scr(nz), scr(nz),
-            scr(nz), scr(nz), scr(nz),
-        ],
+        grid=(F, pl.cdiv(ncol, BLOCK)),
+        out_shape=(lay, lay, out(F, nz + 1, ncol), lay),
+        compiler_params=plgpu.CompilerParams(num_warps=BLOCK // 32),
+        backend="triton",
         interpret=interpret,
-        **params,
-    )(dm, pt, dz, w, pem, pm, ws)
-    return w2, dz2, ppe
+        name="sim1_solver",
+    )(*map(cols, (dm, pt, dz, w, pem, pm, ws)))
+    shape = dm.shape
+    return (
+        w2.reshape(shape), dz2.reshape(shape),
+        ppe.reshape(pem.shape),
+    )

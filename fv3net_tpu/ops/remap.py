@@ -1,4 +1,4 @@
-"""Conservative PPM vertical remapping (the mappm algorithm, TPU-native).
+"""Conservative PPM vertical remapping (the mappm algorithm, in JAX).
 
 Re-implements the vertical-profile reconstruction and mass-flux-preserving
 remap of FV3's ``fv_mapz`` family, whose exact semantics the reference
@@ -8,11 +8,11 @@ variants, mappm.f90:132-509), ``cs_limiters`` (:535), ``ppm_profile``
 (4th-order edge interpolation + Huynh constraint, :614), ``ppm_limiters``
 (:854), and the interval-overlap integration of ``mappm`` itself (:10-124).
 
-Design for TPU: everything is vectorized over an arbitrary batch of
+Design: everything is vectorized over an arbitrary batch of
 columns.  The layer axis `k` is moved to the FRONT internally, so all the
 k-shifted stencil terms are static slices and the two tridiagonal sweeps
-are `lax.scan`s whose carried state is a full (batch...) array -- the VPU
-processes every column of the cube in lockstep.  The remap integration
+are `lax.scan`s whose carried state is a full (batch...) array -- every
+column of the cube advances in lockstep.  The remap integration
 itself is reformulated as evaluation of the piecewise-parabolic cumulative
 mass function at the target edges (a broadcasted interval search + analytic
 partial integrals), which is algebraically identical to the Fortran per-
@@ -700,9 +700,9 @@ def ppm_remap(
     def cum_mass(p):
         """M(p) with constant extension beyond the source column.
 
-        p: [kn+1, ...] target edge pressures.  Gather-free form (TPU:
-        take_along_axis lowers to per-element scalar gathers, ~2000x
-        slower than this dense clipped-parabola reduction): every
+        p: [kn+1, ...] target edge pressures.  Gather-free form, a
+        dense O(km * kn) clipped-parabola reduction in place of a
+        take_along_axis interval search: every
         source layer contributes its parabola integral clipped to p,
             s_k(p) = clip((p - pe1[k]) / dp1[k], 0, 1)
             M(p)   = sum_k dp1[k] * [al s + (ar-al)/2 s^2
@@ -757,8 +757,8 @@ def interpolate_columns(xp, x, y, fill_value=jnp.nan):
     Boundary semantics match the Fortran: xp == x[k] returns y[k] exactly,
     and xp == x[-1] (the last edge) is in range.
     """
-    # gather-free (take_along_axis is per-element scalar gathers on
-    # TPU): for monotone x the piecewise-linear interpolant telescopes,
+    # gather-free (no take_along_axis interval search): for monotone x
+    # the piecewise-linear interpolant telescopes,
     #   y(t) = y[0] + sum_k (y[k+1]-y[k]) clip((t-x[k])/(x[k+1]-x[k]),0,1)
     s = (xp[None] - x[:-1, None]) / (x[1:, None] - x[:-1, None])
     s = jnp.clip(s, 0.0, 1.0)

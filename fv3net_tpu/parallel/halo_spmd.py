@@ -4,8 +4,9 @@ This is the production multi-chip halo path (SURVEY 2.3, 7 Phase 2):
 instead of letting the XLA SPMD partitioner turn the single-device
 flat gathers (grid/halo.py:65) into all-gathers over the whole cube,
 each face shard sends exactly its edge strips to its topological
-neighbors as `jax.lax.ppermute` neighbor exchanges that ride the ICI
-links -- the TPU equivalent of FMS `mpp_update_domains` halo updates.
+neighbors as `jax.lax.ppermute` neighbor exchanges over the device
+interconnect -- the JAX equivalent of FMS `mpp_update_domains` halo
+updates.
 
 Design: all orientation handling happens on the SENDER.  For every
 halo block of the padded array (4 edge strips + 4 corner blocks) the
@@ -140,7 +141,7 @@ def halo_exchange_spmd(field, h: int, mesh: Mesh, fill: str = "none"):
             for rnd in plan[name]:
                 tbl = jnp.asarray(rnd.tbl_stack)[fidx]
                 send = jnp.take(flat, tbl, axis=-1)
-                # self-pairs short-circuit (no ICI hop for clipped
+                # self-pairs short-circuit (no interconnect hop for clipped
                 # own-face corner fills)
                 self_pairs = all(s == d for s, d in rnd.perm)
                 if self_pairs:

@@ -1,11 +1,11 @@
 """Device-mesh partitioning for the cubed sphere.
 
-The TPU-native replacement for the reference's MPI domain decomposition
+The JAX replacement for the reference's MPI domain decomposition
 (pace.util CubedSpherePartitioner / TilePartitioner + mpirun -n 6xy,
 SURVEY 2.3): a `jax.sharding.Mesh` over (face, z) -- and, for larger
 slices, (face, y, x) -- with fields placed by NamedSharding.  Under jit
 the XLA SPMD partitioner turns the halo-exchange gathers and global
-reductions into ICI collectives automatically; the explicit
+reductions into device collectives automatically; the explicit
 shard_map+ppermute edge exchange is the planned optimization for
 production halos.
 

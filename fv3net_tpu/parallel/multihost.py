@@ -3,12 +3,12 @@
 The reference launches one OS process per rank with
 ``mpirun -n 6*x*y python -m mpi4py runtime/main.py``
 (workflows/prognostic_c48_run/runtime/segmented_run/run.py:36-50) and
-couples them with MPI through FMS/pace.util.  The TPU-native
+couples them with MPI through FMS/pace.util.  The JAX
 equivalent (SURVEY 2.3): each host calls ``jax.distributed.initialize``
 against a shared coordinator, all hosts see one GLOBAL device list,
 and a single ``jax.sharding.Mesh`` over those devices makes the
-shard_map/ppermute halo exchanges ride ICI within a host and DCN
-across hosts — placement follows device order, which JAX groups by
+shard_map/ppermute halo exchanges ride the device interconnect within
+a host and the network across hosts — placement follows device order, which JAX groups by
 process, so contiguous face/tile blocks land process-local.
 
 On CPU backends (tests; the reference's own deployment target is CPU

@@ -15,7 +15,7 @@ vort_damp, scalar_filter) remain provably dissipative because jax.vjp
 transposes ppermute exactly.
 
 The reference scales by 6*x*y MPI ranks with FMS halo updates
-(runtime/segmented_run/run.py:34-35); here the face axis rides the ICI
+(runtime/segmented_run/run.py:34-35); here the face axis rides the device
 mesh, and the WITHIN-FACE (y, x) axes are provided by
 make_tiled_spmd_dycore_stepper below (parallel/tiling.py): device
 meshes (face=F, y=Y, x=X) with every exchange derived from the same
@@ -109,19 +109,20 @@ def make_spmd_dycore_stepper(
             out, _ = jax.lax.scan(body, state, None, length=nsteps)
         return out
 
+    # one jit for the stepper's life: repeated calls reuse its trace
+    @partial(jax.jit, static_argnames="nsteps")
     def run(state: DycoreState, phis, nsteps: int):
         in_specs = (
             DycoreState(*[spec_for(x) for x in state]),
             P("face", None, None),
         )
         out_specs = DycoreState(*[spec_for(x) for x in state])
-        fn = jax.shard_map(
+        return jax.shard_map(
             partial(local_steps, nsteps=nsteps),
             mesh=mesh,
             in_specs=in_specs,
             out_specs=out_specs,
-        )
-        return jax.jit(fn)(state, phis)
+        )(state, phis)
 
     def shard(state: DycoreState, phis):
         def put(x):
@@ -341,15 +342,15 @@ def make_tiled_spmd_dycore_stepper(
             u=out.u[:, None, None], v=out.v[:, None, None]
         )
 
+    @partial(jax.jit, static_argnames="nsteps")
     def run(state: DycoreState, phis, nsteps: int):
         sp = spec_for(state)
-        fn = jax.shard_map(
+        return jax.shard_map(
             partial(local_steps, nsteps=nsteps),
             mesh=mesh,
             in_specs=(sp, phis_spec),
             out_specs=sp,
-        )
-        return jax.jit(fn)(state, phis)
+        )(state, phis)
 
     def shard(state: DycoreState, phis):
         ub, vb = block_winds(state.u, state.v, lay)

@@ -2,7 +2,7 @@
 
 The reference scales by ``6*x*y`` MPI ranks -- 6 faces times a
 ``layout=[x, y]`` within-face tiling (runtime/segmented_run/run.py:34-35,
-pace.util CubedSpherePartitioner).  This module is the TPU-native
+pace.util CubedSpherePartitioner).  This module is the JAX
 equivalent: a device mesh ``(face, y, x)`` where every device owns
 ``6/F`` faces' worth of one ``(y, x)`` tile, and ALL halo/staggered
 exchanges run as compressed gather + ``ppermute`` rounds over the

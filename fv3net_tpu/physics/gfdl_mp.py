@@ -4,7 +4,7 @@ The reference's namelist runs the in-dycore GFDL cloud microphysics
 alongside ``do_sat_adj: true`` (fv_core_nml,
 workflows/prognostic_c48_run/tests/test_regression.py:133-200); the
 Fortran scheme itself lives in the empty fv3gfs-fortran submodule, so
-this is a from-scratch TPU-native bulk scheme with the same category
+this is a from-scratch JAX bulk scheme with the same category
 structure and process graph: water vapor, cloud liquid, cloud ice,
 rain, snow, graupel, with saturation adjustment (mixed-phase ramp),
 auto-conversion, accretion, freezing/melting, rain evaporation, and

@@ -1,4 +1,4 @@
-"""GFS-style column physics suite, TPU-native (pure JAX, jittable).
+"""GFS-style column physics suite, in pure JAX (jittable).
 
 The reference steps a Fortran GFS physics suite through the wrapper
 phases (SURVEY 2.1: radiation / PBL / convection / Zhao-Carr
@@ -11,7 +11,7 @@ suite as fused on-device column physics:
     K-profile eddy diffusivity, and a backward-Euler implicit vertical
     solve per column (role of GFS ``moninedmf``); the tridiagonal
     Thomas solve is a `lax.scan` over levels, batched over all
-    6*n*n columns so every scan step is one [6, n, n] VPU op
+    6*n*n columns so every scan step is one [6, n, n] array op
   * convection -- a Betts-Miller relaxed adjustment toward a
     lifted-parcel moist adiabat with column enthalpy conservation
     (role of GFS SAS/samf deep+shallow convection)

@@ -2,7 +2,7 @@
 
 The reference's suite steps the GFS orographic GWD inside the Fortran
 physics driver (SURVEY 2.1 "GFS physics suite"; the scheme itself
-lives in the empty fv3gfs-fortran submodule).  This is a TPU-native
+lives in the empty fv3gfs-fortran submodule).  This is a JAX
 McFarlane (1987)-style single-wave scheme:
 
 * low-level wave stress from the subgrid orography standard deviation:

@@ -3,7 +3,7 @@
 Plays the role of the reference's `radiation_clouds.py` (CloudClass,
 1,778 LoC: progcld cloud-property diagnosis) and
 `radiation_aerosols.py` (AerosolClass, 2,480 LoC: climatological
-aerosol optical depth by band), per SURVEY 2.2.  TPU-native form:
+aerosol optical depth by band), per SURVEY 2.2.  JAX form:
 pure jnp expressions producing per-band (tau, ssa, asy) arrays that
 broadcast straight into the two-stream solvers.
 

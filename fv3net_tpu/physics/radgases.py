@@ -4,7 +4,7 @@ Plays the role of the reference's `radiation_gases.py` (GasClass,
 ~700 LoC: global-mean CO2/rare-gas climatology + seasonal update) plus
 the k-distribution tables baked into `radlw/radlw_main.py` and
 `radsw/radsw_main.py` (reference external/radiation; see
-radiation_driver.py:18).  TPU-native design: instead of 140/112
+radiation_driver.py:18).  Design: instead of 140/112
 g-points with pentadecadal lookup tables, each band carries a small set
 of mass-absorption coefficients (m^2/kg) for the active absorbers
 (H2O, CO2, O3) plus a pressure-broadening exponent; optical depth is a

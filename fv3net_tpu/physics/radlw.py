@@ -1,13 +1,13 @@
 """Multi-band longwave radiative transfer in JAX.
 
 Plays the role of the reference's `radlw/radlw_main.py` (`RadLWClass`,
-3,717 LoC, 16 bands / 140 g-points; SURVEY 2.2).  TPU-native design:
+3,717 LoC, 16 bands / 140 g-points; SURVEY 2.2).  Design:
 
 - per-band Planck emission uses exact band fractions of sigma*T^4,
   precomputed at import time by numerically integrating the Planck
   function over each band's wavenumber limits on a temperature grid
   (a 64-entry table interpolated with jnp.interp — tiny, stays in
-  registers/VMEM; contrast with RRTMG's 59-temperature 140-g-point
+  cache; contrast with RRTMG's 59-temperature 140-g-point
   tables);
 - absorption-approximation transfer (no LW scattering, as in RRTMG):
   one downward and one upward `lax.scan` over levels with all bands

@@ -1,7 +1,7 @@
 """Multi-band shortwave radiative transfer in JAX.
 
 Plays the role of the reference's `radsw/radsw_main.py` (`RadSWClass`,
-2,842 LoC, 14 bands / 112 g-points; SURVEY 2.2).  TPU-native design:
+2,842 LoC, 14 bands / 112 g-points; SURVEY 2.2).  Design:
 
 - optical properties are [band, nz, ...column] arrays built by pure
   elementwise expressions (radgases/radclouds) — XLA fuses them;
@@ -9,7 +9,7 @@ Plays the role of the reference's `radsw/radsw_main.py` (`RadSWClass`,
   transmittance (direct + diffuse), then layers are combined with the
   adding method via `lax.scan` over the (static) level dimension with
   all bands and columns batched — each scan step is a fat elementwise
-  block over [band, cols], ideal VPU shape, no host control flow;
+  block over [band, cols], no host control flow;
 - the 14 RRTMG_SW bands (radgases.SW_BAND_LIMITS_CM1) each carry a
   small correlated-k quadrature (radgases.SW_GPT_*): gas optical depth
   is evaluated at NGPT_SW multipliers per band with `lax.map`

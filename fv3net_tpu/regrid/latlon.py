@@ -5,7 +5,7 @@ mosaic files from GCS (fv3post/fregrid.py:15-55).  Here the overlap
 weights are generated by a small native C++ kernel (weights.cpp,
 compiled on first use with g++ and bound via ctypes -- no pybind11 in
 this image) and applied on-device as a JAX segment-sum, so regridding
-runs at memory bandwidth on TPU and composes under jit.
+runs at memory bandwidth on the device and composes under jit.
 """
 
 from __future__ import annotations

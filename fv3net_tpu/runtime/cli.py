@@ -17,15 +17,12 @@ import argparse
 import json
 import sys
 
-import yaml
-
 
 def create_cmd(url: str, fv3config_path: str) -> int:
+    from .config import load_config_yaml
     from .segmented_run import create
 
-    with open(fv3config_path) as f:
-        config = yaml.safe_load(f)
-    create(url, config)
+    create(url, load_config_yaml(fv3config_path))
     return 0
 
 
@@ -39,11 +36,10 @@ def run_native_cmd(fv3config_path: str, rundir: str,
                    n_steps=None) -> int:
     """Set up a run directory and run one segment in it (the
     reference's run-native debugging entry, cli.py:56-63)."""
+    from .config import load_config_yaml
     from .segmented_run import append, create
 
-    with open(fv3config_path) as f:
-        config = yaml.safe_load(f)
-    create(rundir, config)
+    create(rundir, load_config_yaml(fv3config_path))
     return append(rundir, n_steps=n_steps)
 
 
@@ -116,6 +112,9 @@ def main(argv=None) -> int:
     p.add_argument("paths", nargs="*")
 
     args = parser.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.command == "create":
         return create_cmd(args.url, args.fv3config_path)
     if args.command == "append":

@@ -14,8 +14,6 @@ import dataclasses
 import typing
 from typing import Any, Mapping, Optional, Sequence
 
-import yaml
-
 from .steppers import (
     MachineLearningConfig,
     NudgingConfig,
@@ -148,6 +146,8 @@ def get_config(config_dict: Mapping[str, Any]) -> UserConfig:
 
 
 def load_config_yaml(path: str) -> dict:
+    import yaml
+
     with open(path) as f:
         return yaml.safe_load(f)
 

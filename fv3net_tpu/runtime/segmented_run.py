@@ -17,7 +17,6 @@ import os
 from typing import Optional
 
 import numpy as np
-import yaml
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +73,8 @@ def create(url: str, config: dict):
     os.makedirs(url, exist_ok=True)
     if os.listdir(url):
         raise ValueError(f"run directory {url} is not empty")
+    import yaml
+
     with open(os.path.join(url, "fv3config.yml"), "w") as f:
         yaml.safe_dump(config, f)
 
@@ -118,14 +119,13 @@ def append(url: str, n_steps: Optional[int] = None) -> int:
     """Run one more segment, resuming from the previous one
     (segmented_run/append.py:37-60)."""
     from .. import wrapper
-    from ..runtime.config import get_config
+    from ..runtime.config import get_config, load_config_yaml
     from ..runtime.derived_state import DerivedModelState
     from ..runtime.diagnostics import get_diagnostic_files
     from ..runtime.loop import TimeLoop
     from ..runtime.metrics import compute_metrics, log_metrics
 
-    with open(os.path.join(url, "fv3config.yml")) as f:
-        config_dict = yaml.safe_load(f)
+    config_dict = load_config_yaml(os.path.join(url, "fv3config.yml"))
     user_config = get_config(config_dict)
     namelist = config_dict.get("namelist", {})
     model_cfg = wrapper.ModelConfig(

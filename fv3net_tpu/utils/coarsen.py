@@ -2,7 +2,7 @@
 
 The reference's coarsening engine reduces C3072/C384 output to C48
 training resolution with dask-parallel block reductions
-(coarsen.py:183-900).  On TPU these are trivial reshape-reduce XLA ops;
+(coarsen.py:183-900).  Here they are trivial reshape-reduce XLA ops;
 the functions below operate on the trailing (y, x) axes of any array and
 keep the reference semantics: weighted averages for cell quantities,
 edge-weighted averages for staggered winds, sums for fluxes, medians /

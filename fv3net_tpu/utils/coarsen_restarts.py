@@ -4,7 +4,7 @@ coarsen_restarts_via_blended_method :228, hydrostatic-balance
 imposition :916, dominant-surface-type sfc_data logic :1032-1410).
 
 This is the engine that turns C384/C3072 fine-run restarts into C48
-training states.  TPU-native design: every operation is a pure array
+training states.  Design: every operation is a pure array
 transform (block reshapes + reductions, plus the framework's PPM remap
 for the pressure-level variant), so the full coarsening of a restart
 state jits into a handful of XLA kernels -- the reference needed a

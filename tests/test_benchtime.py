@@ -1,7 +1,6 @@
-"""The bench's steady-state timing guard must ACT on congestion:
-re-run congested windows, bank min-of-clean-batches, and refuse a
-headline when no clean consensus exists (VERDICT r4 item 7).  Pure
-logic, tested with a fake clock."""
+"""The bench's steady-state timing guard must ACT on noisy windows:
+re-run them, bank min-of-clean-batches, and refuse a headline when no
+clean consensus exists.  Pure logic, tested with a fake clock."""
 
 from fv3net_tpu.utils.benchtime import steady_state_timing
 

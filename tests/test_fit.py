@@ -1,6 +1,6 @@
 """ML framework tests: training functions, io registry round-trips,
 composite models, novelty detection -- the fv3fit test strategy
-(SURVEY 4.1) against the TPU-native framework."""
+(SURVEY 4.1) against this framework."""
 
 import numpy as np
 import pytest
@@ -54,6 +54,53 @@ def test_dense_learns_identity():
     ).mean()
     scale = np.abs(batches[0]["x"].values).mean()
     assert err < 0.2 * scale, err
+
+
+@pytest.mark.parametrize("depth", [1, 11])
+def test_dense_loads_flax_layout_params(tmp_path, wave_batches, depth):
+    """params.npy holds the raveled {"Dense_i": {"bias", "kernel"}}
+    dict in flax's order (keys sorted as strings, bias before kernel),
+    so model directories written by flax-based versions still load;
+    depth 11 puts Dense_10 before Dense_2."""
+    model = fit.train_dense_model(
+        fit.DenseHyperparameters(depth=depth, width=3, epochs=1),
+        wave_batches,
+        input_variables=["a_in"],
+        output_variables=["b_out"],
+    )
+    path = str(tmp_path / "model")
+    fit.dump(model, path)
+    rng = np.random.RandomState(depth)
+    sizes = [5] + [3] * depth + [5]
+    layers = {
+        f"Dense_{i}": {
+            "bias": rng.randn(b).astype(np.float32),
+            "kernel": rng.randn(a, b).astype(np.float32),
+        }
+        for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))
+    }
+    flat = np.concatenate([
+        layers[k][leaf].ravel()
+        for k in sorted(layers) for leaf in ("bias", "kernel")
+    ])
+    np.save(tmp_path / "model" / "params.npy", flat)
+    loaded = fit.load(path)
+    for k, leaves in layers.items():
+        for leaf, want in leaves.items():
+            np.testing.assert_array_equal(
+                np.asarray(loaded.params[k][leaf]), want
+            )
+    x = rng.randn(7, 5).astype(np.float32)
+    want = x
+    for i in range(depth + 1):
+        want = want @ layers[f"Dense_{i}"]["kernel"]
+        want = want + layers[f"Dense_{i}"]["bias"]
+        if i < depth:
+            want = np.maximum(want, 0.0)
+    np.testing.assert_allclose(
+        np.asarray(loaded._apply(loaded.params, x)), want, rtol=1e-5,
+        atol=1e-5,
+    )
 
 
 def test_random_forest(tmp_path, wave_batches):

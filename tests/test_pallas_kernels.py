@@ -1,5 +1,10 @@
-"""Pallas TPU kernel equivalence vs the jnp reference implementations
-(interpret mode on CPU; the real-chip parity check runs in tools/)."""
+"""The fused SIM1 vertical-solver kernel (ops/pallas_sim1.py, Triton
+route) against the jnp reference in interpret mode; the jnp reference
+against an independent float64 numpy oracle; the plain column-pressure
+chain against numpy; and the per-platform choice of kernel."""
+
+import ast
+import pathlib
 
 import numpy as np
 import pytest
@@ -7,107 +12,30 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fv3net_tpu.ops.advection import fv_tp_2d
-from fv3net_tpu.ops.pallas_tp import fv_tp_2d_pallas
+from fv3net_tpu.constants import (
+    CP_AIR,
+    CV_AIR,
+    GRAV,
+    KAPPA,
+    RDGAS,
+    REFERENCE_SURFACE_PRESSURE as P00,
+)
+from fv3net_tpu.dycore.hydro import column_pressures
+from fv3net_tpu.dycore.riemann import (
+    hydrostatic_dz,
+    layer_mean_pressure,
+    sim1_solve,
+    sim1_solver,
+)
+from fv3net_tpu.ops.pallas_sim1 import sim1_solver_pallas
 
-
-def _args(n=12, nz=5, h=3, seed=0):
-    N = n + 2 * h
-    rng = np.random.RandomState(seed)
-    f32 = np.float32
-    qx = jnp.asarray(rng.randn(6, nz, N, N).astype(f32))
-    qy = jnp.asarray(rng.randn(6, nz, N, N).astype(f32))
-    crx = jnp.asarray((0.2 * rng.randn(6, nz, N, N)).astype(f32))
-    cry = jnp.asarray((0.2 * rng.randn(6, nz, N, N)).astype(f32))
-    xfx = jnp.asarray(rng.randn(6, nz, N, N).astype(f32))
-    yfx = jnp.asarray(rng.randn(6, nz, N, N).astype(f32))
-    apx = jnp.asarray(
-        (1.0 + 0.1 * rng.rand(6, 1, N, N)).astype(f32)
-    )
-    apy = jnp.asarray(
-        (1.0 + 0.1 * rng.rand(6, 1, N, N)).astype(f32)
-    )
-    return qx, qy, crx, cry, xfx, yfx, apx, apy, h, n
-
-
-@pytest.mark.parametrize("hord", [1, 5, 6, 8])
-def test_fv_tp_2d_pallas_matches_jnp(hord):
-    qx, qy, crx, cry, xfx, yfx, apx, apy, h, n = _args()
-    fx_ref, fy_ref = fv_tp_2d(
-        qx, qy, crx, cry, xfx, yfx, apx, apy, hord
-    )
-    fx, fy = fv_tp_2d_pallas(
-        qx, qy, crx, cry, xfx, yfx, apx, apy, hord, interpret=True
-    )
-    # garbage near the array ends is cropped by callers: compare the
-    # face-lattice region actually consumed (interior +/- halo-1)
-    sl = np.s_[:, :, 2 : n + 2 * h - 2, 2 : n + 2 * h - 2]
-    np.testing.assert_allclose(
-        np.asarray(fx)[sl], np.asarray(fx_ref)[sl], rtol=1e-4,
-        atol=1e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fy)[sl], np.asarray(fy_ref)[sl], rtol=1e-4,
-        atol=1e-3,
-    )
-
-
-def test_fv_tp_2d_pallas_odd_zblock():
-    """nz not divisible by the z-block: real levels must still match."""
-    qx, qy, crx, cry, xfx, yfx, apx, apy, h, n = _args(nz=7, seed=3)
-    fx_ref, fy_ref = fv_tp_2d(
-        qx, qy, crx, cry, xfx, yfx, apx, apy, 5
-    )
-    fx, fy = fv_tp_2d_pallas(
-        qx, qy, crx, cry, xfx, yfx, apx, apy, 5, interpret=True
-    )
-    sl = np.s_[:, :, 2 : n + 2 * h - 2, 2 : n + 2 * h - 2]
-    np.testing.assert_allclose(
-        np.asarray(fx)[sl], np.asarray(fx_ref)[sl], rtol=1e-4,
-        atol=1e-3,
-    )
-
-
-def test_fv_tp_2d_pallas_mass_weighted_area():
-    """area*delp (full z extent) as the area argument — the pt/w
-    transport form in dyn_substep."""
-    qx, qy, crx, cry, xfx, yfx, apx, apy, h, n = _args(seed=5)
-    rng = np.random.RandomState(7)
-    dp = jnp.asarray(
-        (100.0 + rng.rand(*qx.shape)).astype(np.float32)
-    )
-    fx_ref, fy_ref = fv_tp_2d(
-        qx, qy, crx, cry, xfx, yfx, apx * dp, apy * dp, 5
-    )
-    fx, fy = fv_tp_2d_pallas(
-        qx, qy, crx, cry, xfx, yfx, apx * dp, apy * dp, 5,
-        interpret=True,
-    )
-    sl = np.s_[:, :, 2 : n + 2 * h - 2, 2 : n + 2 * h - 2]
-    np.testing.assert_allclose(
-        np.asarray(fx)[sl], np.asarray(fx_ref)[sl], rtol=1e-4,
-        atol=1e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fy)[sl], np.asarray(fy_ref)[sl], rtol=1e-4,
-        atol=1e-3,
-    )
-
-
-# ---------------------------------------------------------------------------
-# sim1 semi-implicit vertical solver (ops/pallas_sim1.py)
-# ---------------------------------------------------------------------------
+DT = 150.0
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _sim1_args(n=8, nz=13, dtype=np.float32, seed=0):
     """Physically plausible columns (the solver's gas law needs
     dz < 0, dm > 0, pt > 0)."""
-    from fv3net_tpu.constants import GRAV
-    from fv3net_tpu.dycore.riemann import (
-        hydrostatic_dz,
-        layer_mean_pressure,
-    )
-
     rng = np.random.RandomState(seed)
     ps, ptop = 1.0e5, 300.0
     pe1d = np.linspace(ptop, ps, nz + 1)
@@ -135,239 +63,160 @@ def _sim1_args(n=8, nz=13, dtype=np.float32, seed=0):
     )
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_sim1_pallas_matches_jnp(dtype):
-    from fv3net_tpu.dycore.riemann import sim1_solver
-    from fv3net_tpu.ops.pallas_sim1 import sim1_solver_pallas
-
-    dm, pt, dz, w, pem, pm, ws = _sim1_args(dtype=dtype)
-    dt = 150.0
-    w_ref, dz_ref, ppe_ref = sim1_solver(
-        dt, dm, pt, dz, w, pem, pm, ws
-    )
-    w2, dz2, ppe = sim1_solver_pallas(
-        dt, dm, pt, dz, w, pem, pm, ws, interpret=True
-    )
-    rtol = 1e-5 if dtype == np.float32 else 1e-12
-    np.testing.assert_allclose(
-        np.asarray(w2), np.asarray(w_ref), rtol=rtol, atol=rtol * 10
-    )
-    np.testing.assert_allclose(
-        np.asarray(dz2), np.asarray(dz_ref), rtol=rtol,
-        atol=rtol * 100,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ppe), np.asarray(ppe_ref), rtol=1e-4,
-        atol=np.abs(np.asarray(ppe_ref)).max() * rtol * 10,
-    )
-
-
-def test_sim1_pallas_odd_rows():
-    """ny not divisible by 8 exercises the BY fallback."""
-    from fv3net_tpu.dycore.riemann import sim1_solver
-    from fv3net_tpu.ops.pallas_sim1 import sim1_solver_pallas
-
-    dm, pt, dz, w, pem, pm, ws = _sim1_args(n=6, seed=2)
-    w_ref, dz_ref, _ = sim1_solver(
-        150.0, dm, pt, dz, w, pem, pm, ws
-    )
-    w2, dz2, _ = sim1_solver_pallas(
-        150.0, dm, pt, dz, w, pem, pm, ws, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(w2), np.asarray(w_ref), rtol=1e-5, atol=1e-4
-    )
-
-
-# ---------------------------------------------------------------------------
-# vertical remap (ops/pallas_remap.py)
-# ---------------------------------------------------------------------------
-
-
-def _remap_args(n=8, km=13, kn=13, seed=0, stag=(0, 0)):
-    rng = np.random.RandomState(seed)
-    ny, nx = n + stag[0], n + stag[1]
-    ps, ptop = 1.0e5, 300.0
-    pe1 = np.sort(
-        np.broadcast_to(
-            np.linspace(ptop, ps, km + 1)[:, None, None],
-            (km + 1, ny, nx),
-        )
-        * (1.0 + 0.02 * rng.rand(6, km + 1, ny, nx)),
-        axis=1,
-    )
-    # target grid: same endpoints, redistributed interiors (the
-    # Lagrangian->Eulerian situation)
-    w = np.sort(rng.rand(6, kn + 1, ny, nx), axis=1)
-    w = (w - w[:, :1]) / (w[:, -1:] - w[:, :1])
-    pe2 = pe1[:, :1] + (pe1[:, -1:] - pe1[:, :1]) * w
-    q = 1.0 + rng.randn(6, km, ny, nx)
-    f32 = np.float32
-    return (
-        jnp.asarray(q, f32), jnp.asarray(pe1, f32),
-        jnp.asarray(pe2, f32),
-    )
-
-
-@pytest.mark.parametrize("iv", [1, 0, -1])
-@pytest.mark.parametrize("stag", [(0, 0), (1, 0), (0, 1)])
-def test_ppm_remap_pallas_matches_jnp(iv, stag):
-    from fv3net_tpu.ops.pallas_remap import ppm_remap_pallas
-    from fv3net_tpu.ops.remap import ppm_remap
-
-    q, pe1, pe2 = _remap_args(stag=stag)
-    ref = jnp.moveaxis(
-        ppm_remap(
-            jnp.moveaxis(q, 1, 0), jnp.moveaxis(pe1, 1, 0),
-            jnp.moveaxis(pe2, 1, 0), iv=iv, kord=9,
-            exact_boundaries=True,
-        ),
-        0, 1,
-    )
-    out = ppm_remap_pallas(q, pe1, pe2, iv=iv, kord=9, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=2e-5, atol=2e-5
-    )
-
-
-def test_ppm_remap_pallas_conservative():
-    from fv3net_tpu.ops.pallas_remap import ppm_remap_pallas
-
-    q, pe1, pe2 = _remap_args(seed=4)
-    out = ppm_remap_pallas(q, pe1, pe2, iv=1, kord=9, interpret=True)
-    m1 = np.sum(
-        np.asarray(q) * np.asarray(pe1[:, 1:] - pe1[:, :-1]), axis=1
-    )
-    m2 = np.sum(
-        np.asarray(out) * np.asarray(pe2[:, 1:] - pe2[:, :-1]),
-        axis=1,
-    )
-    np.testing.assert_allclose(m2, m1, rtol=2e-4)
-
-
-# ---------------------------------------------------------------------------
-# columnar pressure/Exner chain (ops/pallas_column.py)
-# ---------------------------------------------------------------------------
-
-
-def test_column_pressures_pallas_matches_jnp():
-    from fv3net_tpu.constants import (
-        KAPPA,
-        REFERENCE_SURFACE_PRESSURE as P00,
-    )
-    from fv3net_tpu.dycore.riemann import layer_mean_pressure
-    from fv3net_tpu.ops.pallas_column import column_pressures_pallas
-
-    rng = np.random.RandomState(0)
-    F, nz, Y, X = 6, 13, 8, 16
-    ptop = 300.0
-    dp = jnp.asarray(
-        (900.0 + 200.0 * rng.rand(F, nz, Y, X)).astype(np.float32)
-    )
-    pe, pi, pm = column_pressures_pallas(dp, ptop, interpret=True)
-    pe_ref = ptop + jnp.concatenate(
-        [jnp.zeros_like(dp[:, :1]), jnp.cumsum(dp, axis=1)], axis=1
-    )
-    pik = (pe_ref / P00) ** KAPPA
-    pi_ref = (
-        pik[:, 1:] * pe_ref[:, 1:] - pik[:, :-1] * pe_ref[:, :-1]
-    ) / ((1.0 + KAPPA) * dp)
-    pm_ref = layer_mean_pressure(dp, pe_ref)
-    np.testing.assert_allclose(
-        np.asarray(pe), np.asarray(pe_ref), rtol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(pi), np.asarray(pi_ref), rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(pm), np.asarray(pm_ref), rtol=1e-5
-    )
-
-
-def test_fv_tp_2d_multi5_matches_per_field():
-    """The fused 5-field substep transport (fv_tp_2d_multi5) matches
-    five per-field fv_tp_2d calls with the same wiring (delp fluxes
-    feeding the mass-weighted transports) to interpret-mode tolerance,
-    on physically scaled inputs (CFL ~ 0.2; random unscaled inputs let
-    the inner-update denominator cross zero and amplify the
-    interpret-vs-jnp rounding noise unboundedly)."""
-    from fv3net_tpu.ops.pallas_tp import fv_tp_2d_multi5
-
-    rng = np.random.RandomState(3)
-    F, nz, N = 2, 4, 136
-    f32 = lambda *s: jnp.asarray(  # noqa: E731
-        rng.randn(*s).astype(np.float32)
-    )
-    sh = (F, nz, N, N)
-    dpx = 50.0 + 2.0 * f32(*sh)
-    dpy = 50.0 + 2.0 * f32(*sh)
-    ptx, pty = 300.0 + 10 * f32(*sh), 300.0 + 10 * f32(*sh)
-    wx, wy = f32(*sh), f32(*sh)
-    dzx, dzy = -100.0 + 5 * f32(*sh), -100.0 + 5 * f32(*sh)
-    ox, oy = 1e-4 * f32(*sh), 1e-4 * f32(*sh)
-    crx, cry = 0.2 * f32(*sh), 0.2 * f32(*sh)
-    apx = jnp.abs(f32(F, N, N)) + 5.0
-    apy = jnp.abs(f32(F, N, N)) + 5.0
-    xfx = 0.2 * apx[:, None] * f32(*sh)
-    yfx = 0.2 * apy[:, None] * f32(*sh)
-    sfx = 0.2 * apx[:, None] * f32(*sh)
-    sfy = 0.2 * apy[:, None] * f32(*sh)
-    hord = 5
-    fx, fy = fv_tp_2d(
-        dpx, dpy, crx, cry, xfx, yfx, apx[:, None], apy[:, None], hord
-    )
-    ref = (fx, fy)
-    ref += fv_tp_2d(
-        ptx, pty, crx, cry, fx, fy,
-        apx[:, None] * dpx, apy[:, None] * dpy, hord,
-    )
-    ref += fv_tp_2d(
-        wx, wy, crx, cry, fx, fy,
-        apx[:, None] * dpx, apy[:, None] * dpy, hord,
-    )
-    ref += fv_tp_2d(
-        dzx, dzy, crx, cry, xfx, yfx, apx[:, None], apy[:, None], hord
-    )
-    ref += fv_tp_2d(
-        ox, oy, crx, cry, sfx, sfy, apx[:, None], apy[:, None], hord
-    )
-    got = fv_tp_2d_multi5(
-        dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
-        crx, cry, xfx, yfx, sfx, sfy, apx, apy, hord, interpret=True,
-    )
-    sl = np.s_[:, :, 2:-2, 2:-2]
-    for name, a, b in zip(
-        "fxd fyd fxt fyt fxw fyw fxz fyz fxo fyo".split(), ref, got
-    ):
-        a_, b_ = np.asarray(a)[sl], np.asarray(b)[sl]
+def _assert_sim1_close(got, ref, rtol):
+    for name, g, r in zip(("w2", "dz2", "ppe"), got, ref):
+        g, r = np.asarray(g), np.asarray(r)
         np.testing.assert_allclose(
-            b_, a_, rtol=5e-3, atol=1e-3,
-            err_msg=f"multi5 output {name}",
+            g, r, rtol=rtol, atol=rtol * np.abs(r).max(), err_msg=name
         )
 
 
-def test_del4_filter_pallas_matches():
-    """The fused del-4 filter kernel equals sw.scalar_filter's jnp
-    form: the locally computed halo band of L(q) is exactly the
-    canonical exchanged value (fill conventions + per-physical-face
-    weight doubling), so one kernel pass replaces the
-    exchange-L-exchange-L chain."""
-    from fv3net_tpu.dycore.sw import SWMetrics, scalar_filter
-    from fv3net_tpu.grid import CubedSphereGrid
-    from fv3net_tpu.grid.halo import halo_exchange
-    from fv3net_tpu.ops.pallas_filter import del4_filter_pallas
+# interpret mode runs the kernel's own arithmetic in the reference's
+# order except the ppe prefix sum (sequential vs XLA's cumsum), so f32
+# agrees to a few ulp of the column's largest value and f64 to ~1e-13
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+# 64 columns: one full block; 49: one ragged block; 144: two full and a
+# ragged one (the kernel takes 64 columns per program)
+@pytest.mark.parametrize("n", [8, 7, 12])
+@pytest.mark.parametrize("nz", [8, 63])
+def test_sim1_kernel_matches_jnp(nz, n, dtype):
+    args = _sim1_args(n=n, nz=nz, dtype=dtype, seed=nz + n)
+    ref = sim1_solver(DT, *args)
+    got = sim1_solver_pallas(DT, *args, interpret=True)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+    _assert_sim1_close(
+        got, ref, rtol=5e-5 if dtype == np.float32 else 1e-12
+    )
 
-    n, h, nz = 122, 3, 3  # N = 128: the kernel's minimum width
-    g = CubedSphereGrid.make(n, halo=h)
-    m = SWMetrics.make(g, jnp.float32)
-    rng = np.random.RandomState(0)
-    q = jnp.asarray(rng.randn(6, nz, n, n).astype(np.float32))
-    ref = scalar_filter(q, m, 0.02)  # jnp path (pallas off on CPU)
-    qx = halo_exchange(q, h, fill="x")
-    qy = halo_exchange(q, h, fill="y")
-    got = del4_filter_pallas(
-        qx, qy, m.area_px, m.area_py, 0.02, h, interpret=True
+
+def _np_sim1_column(dm, pt, dz, w, pem, pm, ws, dt, p_fac=0.05):
+    """One column of the solver in float64 numpy: the provisional
+    interface perturbation as its lower-bidiagonal system and the
+    implicit w as its tridiagonal system, each solved densely."""
+    gamma = CP_AIR / CV_AIR
+    nz = dm.size
+    pe = P00 * (-dm * RDGAS * pt / dz / P00) ** gamma - pm
+    g = dm[:-1] / dm[1:]
+    bb = np.append(2.0 * (1.0 + g), 2.0)
+    dd = np.append(3.0 * (pe[:-1] + g * pe[1:]), 3.0 * pe[-1])
+    # row k: pp_k + bet_k pp_{k+1} = dd_k, pp_0 = 0
+    bet = np.empty(nz)
+    bet[0] = bb[0]
+    for k in range(1, nz):
+        bet[k] = bb[k] - g[k - 1] / bet[k - 1]
+    lower = np.diag(bet) + np.diag(np.ones(nz - 1), -1)
+    pp = np.concatenate([[0.0], np.linalg.solve(lower, dd)])
+    t1g = 2.0 * gamma * dt * dt
+    aa = t1g / (dz[:-1] + dz[1:]) * (pem[1:-1] + pp[1:-1])
+    p1 = t1g / dz[-1] * (pem[-1] + pp[-1])
+    a_up = np.append(0.0, aa)
+    a_dn = np.append(aa, p1)
+    rhs = dm * w + dt * (pp[1:] - pp[:-1])
+    rhs[-1] -= p1 * ws
+    tri = (
+        np.diag(dm - a_up - a_dn)
+        + np.diag(a_up[1:], -1)
+        + np.diag(a_dn[:-1], 1)
     )
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-5
+    w2 = np.linalg.solve(tri, rhs)
+    ppe = np.concatenate([[0.0], np.cumsum(dm * (w2 - w) / dt)])
+    p_lay = np.maximum(pm + (ppe[:-1] + 2.0 * ppe[1:]) / 3.0, p_fac * pm)
+    dz2 = -(dm * RDGAS * pt / P00) * (p_lay / P00) ** (-CV_AIR / CP_AIR)
+    return w2, dz2, ppe
+
+
+@pytest.mark.parametrize("nz,n", [(8, 3), (13, 4), (63, 2)])
+def test_sim1_solver_matches_numpy_oracle(nz, n):
+    args = _sim1_args(n=n, nz=nz, dtype=np.float64, seed=nz)
+    got = [np.asarray(a) for a in sim1_solver(DT, *args)]
+    a = [np.asarray(x) for x in args]
+    ref = [np.empty_like(x) for x in got]
+    for f in range(6):
+        for j in range(n):
+            for i in range(n):
+                col = _np_sim1_column(
+                    *(x[f, :, j, i] for x in a[:6]), a[6][f, j, i], DT
+                )
+                for r, c in zip(ref, col):
+                    r[f, :, j, i] = c
+    _assert_sim1_close(got, ref, rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 2e-5)])
+@pytest.mark.parametrize("nz", [5, 63])
+def test_column_pressures_match_numpy(nz, dtype, rtol):
+    rng = np.random.RandomState(nz)
+    ptop = 300.0
+    dp = 900.0 + 200.0 * rng.rand(2, nz, 4, 5)
+    pe, pik, pi_lay = column_pressures(jnp.asarray(dp, dtype), ptop)
+    pe_ref = ptop + np.concatenate(
+        [np.zeros_like(dp[:, :1]), np.cumsum(dp, axis=1)], axis=1
     )
+    pik_ref = (pe_ref / P00) ** KAPPA
+    pi_ref = (
+        pik_ref[:, 1:] * pe_ref[:, 1:] - pik_ref[:, :-1] * pe_ref[:, :-1]
+    ) / ((1.0 + KAPPA) * dp)
+    for got, ref in ((pe, pe_ref), (pik, pik_ref), (pi_lay, pi_ref)):
+        assert got.dtype == dtype
+        np.testing.assert_allclose(np.asarray(got), ref, rtol=rtol)
+
+
+def test_column_pressures_finite_on_empty_columns():
+    """Unused halo-corner columns can carry non-positive pressures;
+    the Exner power of the floored pressure keeps them finite."""
+    dp = jnp.zeros((1, 4, 2, 2)).at[0, :, 0, 0].set(-100.0)
+    pe, pik, pi_lay = column_pressures(dp, 0.0)
+    assert np.isfinite(np.asarray(pik)).all()
+    assert float(pe[0, -1, 0, 0]) == -400.0
+
+
+def _lowered_sim1(platform):
+    args = _sim1_args(n=4, nz=8)
+    return (
+        jax.jit(lambda *a: sim1_solve(DT, *a))
+        .trace(*args)
+        .lower(lowering_platforms=(platform,))
+        .as_text()
+    )
+
+
+@pytest.mark.parametrize("platform,kernel", [("cuda", True),
+                                             ("cpu", False)])
+def test_sim1_dispatch_per_platform(platform, kernel):
+    """CUDA lowerings carry the Triton kernel, the others the scans."""
+    txt = _lowered_sim1(platform)
+    assert ("__gpu$xla.gpu.triton" in txt) == kernel
+    assert ("stablehlo.while" in txt) != kernel
+
+
+GPU_ROUTES = {"triton", "mosaic_gpu"}
+
+
+def _pallas_backends(path):
+    """Pallas backend modules a source file imports."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            if node.module == "jax.experimental.pallas":
+                out |= {a.name for a in node.names} - {"pallas"}
+            elif node.module.startswith("jax.experimental.pallas."):
+                out.add(node.module.split(".")[3])
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith("jax.experimental.pallas."):
+                    out.add(a.name.split(".")[3])
+    return out
+
+
+@pytest.mark.parametrize("root", ["fv3net_tpu", "tools", "."])
+def test_pallas_imports_are_gpu_routes(root):
+    """No module of the package, the tools or the repo root imports a
+    Pallas backend other than the GPU routes."""
+    base = REPO / root
+    files = base.rglob("*.py") if root != "." else base.glob("*.py")
+    found = {str(p.relative_to(REPO)): _pallas_backends(p) for p in files}
+    assert found
+    bad = {p: b - GPU_ROUTES for p, b in found.items() if b - GPU_ROUTES}
+    assert not bad

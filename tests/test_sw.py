@@ -184,7 +184,7 @@ def test_corner_divergence_matches_potential_flow():
 def test_scalar_filter_local_form():
     """The face-level forward-only flux-form Laplacian equals the
     vjp-assembled G^T(W G) operator exactly (the local form removes
-    the autodiff-scatter cost on TPU)."""
+    the autodiff scatter)."""
     from fv3net_tpu.dycore.sw import SWMetrics, scalar_filter
 
     n, h, nz = 8, 3, 2
